@@ -1,9 +1,11 @@
 """Alignment engines.
 
 ``align_sequence_to_graph/subgraph`` dispatch between the exact NumPy host
-oracle (reference-bit-exact, see engine_np.py) and the TPU batch engine
-(engine_jax.py). Single-read incremental POA calls use the oracle; batched
-multi-instance throughput runs use the TPU path.
+oracle (reference-bit-exact, see engine_np.py) and the device engine
+(engine_jax.py). With ``--engine jax`` every alignment runs one device round
+(B = 1): whole-graph alignments on the end the platform and input pick,
+subgraph windows (-S) as an XLA planes round. parallel/batch.BatchPOA batches
+both across instances.
 """
 from __future__ import annotations
 
@@ -19,13 +21,8 @@ def align_sequence_to_subgraph(graph, params, beg_node_id, end_node_id,
     if not graph.is_topological_sorted:
         graph.topological_sort(params)
     if getattr(params, "engine", "auto") == "jax":
-        if beg_node_id == SRC_NODE_ID and end_node_id == SINK_NODE_ID:
-            from .engine_jax import align_sequence_to_graph_device
-            return align_sequence_to_graph_device(graph, params, query)
-        if len(query) > 0:
-            from .engine_jax import align_sequence_to_subgraph_device
-            return align_sequence_to_subgraph_device(
-                graph, params, beg_node_id, end_node_id, query)
+        from .engine_jax import align_device
+        return align_device(graph, params, query, beg_node_id, end_node_id)
     return _np_subgraph(graph, params, beg_node_id, end_node_id, query,
                         arena=arena)
 

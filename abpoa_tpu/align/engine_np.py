@@ -6,7 +6,7 @@ F prefix scan (SIMD_SET_F), adaptive-band bookkeeping and the score-width
 (16/32-bit) dispatch (reference: /root/reference/src/simd_abpoa_align.c).
 
 It exists for three reasons:
-  1. it is the permanent correctness oracle for the TPU (Pallas/JAX) engine,
+  1. it is the permanent correctness oracle for the device (JAX) engine,
   2. it generates byte-identical outputs to abPOA v1.4.1 on the golden
      fixtures (the judge's north star),
   3. it documents, in readable NumPy, the exact semantics the reference hides

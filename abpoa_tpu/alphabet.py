@@ -1,6 +1,6 @@
 """Alphabet encode/decode tables.
 
-TPU-native re-design of abPOA's base<->code tables
+Re-design of abPOA's base<->code tables
 (reference: /root/reference/src/abpoa_seq.c:15-98). Sequences are encoded to
 small integer codes once on the host and live as int8/int32 device arrays from
 then on; decode tables are only used at the output boundary.

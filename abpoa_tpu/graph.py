@@ -1,11 +1,11 @@
 """Partial-order alignment graph (host-side DAG store).
 
-TPU-first re-design of abPOA's pointer-based abpoa_graph_t
+Re-design of abPOA's pointer-based abpoa_graph_t
 (reference: /root/reference/include/abpoa.h:83-101, src/abpoa_graph.c).
 
 Design notes vs the reference:
   * adjacency stays host-side (graph bookkeeping is O(V+E) and sequential per
-    instance; the DP over the graph is the hot path and runs on TPU from dense
+    instance; the DP over the graph is the hot path and runs on the device from dense
     arrays exported by ``to_dense()``),
   * per-edge read-id bitmasks are arbitrary-precision python ints instead of
     uint64[] words — identical bit semantics, no word-count bookkeeping,

@@ -1,11 +1,12 @@
-"""Batched banded POA sequence-to-DAG DP for TPU (pure JAX/XLA).
+"""Batched banded POA sequence-to-DAG DP in plain JAX/XLA.
 
-TPU-first re-expression of abPOA's striped-SIMD DP engine
-(reference: /root/reference/src/simd_abpoa_align.c:434-1412). The reference
-processes one read at a time with 8/32-lane SIMD vectors inside a row; here
-the whole row band is one vector op and the *batch of instances* provides the
-parallel width (vmap over instances -> VPU lanes), which is how a chip gets
-filled: one POA instance is far too small on its own.
+Re-expression of abPOA's striped-SIMD DP engine (ref
+src/simd_abpoa_align.c:434-1412). The reference processes one read at a time
+with 8/32-lane SIMD vectors inside a row; here the whole row is one vector op
+and the *batch of instances* provides the parallel width (vmap over
+instances): one POA instance is far too small to fill a device on its own.
+This is the plain reference of the device DP and the engine off the GPU;
+ops/dp_band.py is the GPU kernel with the same semantics.
 
 Semantics vs the host oracle (align/engine_np.py, itself bit-exact to the
 reference):
@@ -37,8 +38,9 @@ reference):
 
 Alignment modes: global / local / extend (z-drop), gap modes: linear /
 affine / convex, matching abpoa_para_t (ref include/abpoa.h:62-81).
-Backtrack stays on the host (align/engine_jax.py) over the returned planes,
-preserving the reference's M->D->I / indel_first tie-breaking exactly.
+The backtrack runs either on the device (ops/bt_xla.py, global/extend) or on
+the host over the returned planes (align/engine_jax.py), preserving the
+reference's M->D->I / indel_first tie-breaking exactly.
 """
 from __future__ import annotations
 
@@ -340,14 +342,9 @@ def banded_poa_dp(cfg: DPConfig, inp: DPInputs) -> DPOutputs:
     dp_sn = inp.qlen // pn + 1
 
     # query profile qp[k][j] = mat[k, query[j-1]] (ref abpoa_init_var
-    # :502-515), built once as a one-hot matmul (gathers serialize on TPU);
-    # cols 0 and > qlen score 0
+    # :502-515), one gather; cols 0 and > qlen score 0
     qvalid = (iota >= 1) & (iota <= inp.qlen)
-    m = inp.mat.shape[0]
-    onehot = (inp.qcol[None, :] == jnp.arange(m, dtype=jnp.int32)[:, None])
-    qp = jnp.where(qvalid[None, :],
-                   jnp.dot(inp.mat, onehot.astype(jnp.int32),
-                           preferred_element_type=jnp.int32), 0)  # [m, W]
+    qp = jnp.where(qvalid[None, :], inp.mat[:, inp.qcol], 0)  # [m, W]
 
     zeros_plane = jnp.zeros((cfg.R, cfg.W), dtype=jnp.int32)
     planes = (zeros_plane, zeros_plane, zeros_plane, zeros_plane, zeros_plane)

@@ -1,7 +1,7 @@
 """Multi-host data-parallel POA: per-host instance shards + host-0 gather.
 
 The reference is a single process writing to stdout
-(ref /root/reference/src/abpoa_align.c:346-362). The TPU-native replacement
+(ref /root/reference/src/abpoa_align.c:346-362). The replacement here
 (SURVEY.md §5 "distributed communication backend") shards INDEPENDENT POA
 instances across hosts over DCN — no collectives touch the DP itself — and
 gathers the rendered outputs (consensus FASTA / MSA / GFA text) on host 0:
@@ -13,7 +13,7 @@ gathers the rendered outputs (consensus FASTA / MSA / GFA text) on host 0:
 Usage (one process per host, standard JAX multi-process recipe):
 
     from abpoa_tpu.parallel import multihost as mh
-    mh.initialize(coordinator, num_processes, process_id)  # or TPU auto
+    mh.initialize(coordinator, num_processes, process_id)
     out = mh.run_consensus_fasta(params, instances)  # str on host 0
 
 Validated without a pod: N processes x M virtual CPU devices
@@ -31,8 +31,8 @@ from ..params import Params
 
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None, local_device_ids=None):
-    """jax.distributed bring-up (idempotent). On a TPU pod slice all
-    arguments are auto-detected; on CPU/GPU pass them explicitly."""
+    """jax.distributed bring-up (idempotent). Pass the coordinator
+    address, process count and process id explicitly."""
     import jax
     kw = {}
     if coordinator_address is not None:
@@ -94,7 +94,7 @@ def _local_mesh(batch_axis: str = "data"):
     return Mesh(np.array(devs), (batch_axis,))
 
 
-def run_render_gather(params: Params, instances, render, engine="pallas",
+def run_render_gather(params: Params, instances, render, engine=None,
                       use_local_mesh=True, stats=None, seeded=False):
     """Run BatchPOA on this host's shard, render each aligner's output
     with ``render(ab, params, out_io)``, gather across hosts.
@@ -132,7 +132,7 @@ def _render_output(ab, params, out):
     ab.output(params, out)
 
 
-def run_consensus_fasta(params: Params, instances, engine="pallas",
+def run_consensus_fasta(params: Params, instances, engine=None,
                         stats=None, seeded=False):
     """Full distributed pipeline -> consensus FASTA text on host 0."""
     if not (params.out_cons or params.out_msa or params.out_gfa):

@@ -95,7 +95,7 @@ class Params:
     max_mat: int = 0
     min_mis: int = 0
 
-    # engine selection for the DP: "numpy" (exact host oracle) or "tpu"
+    # DP engine: "numpy" (exact host oracle) or "jax" (the device engine)
     engine: str = "auto"
 
     def set_gap_mode(self):

@@ -156,7 +156,7 @@ class msa_aligner:
 
     def msa_batch(self, seqs_list, out_cons, out_msa, max_n_cons=1,
                   min_freq=0.25):
-        """TPU-native extension (no reference analog): run many
+        """Batched extension (no reference analog): run many
         independent MSA problems through the batched device pipeline
         (parallel/batch.BatchPOA) and return one msa_result per input,
         each identical to what .msa() returns for that input alone."""

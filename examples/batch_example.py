@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Batched + sharded usage example — the TPU-native throughput surface.
+"""Batched + sharded usage example — the device throughput surface.
 
 No reference analog: the reference processes one problem at a time on one
 core (its list mode is a serial loop, ref /root/reference/src/abpoa.c:
 135-143). Here many independent POA problems batch into one device
 program per round, and a jax.sharding.Mesh spreads the batch across every
-available chip (pure data parallelism — instances are independent).
+available device (pure data parallelism — instances are independent).
 
-Run from the repo root (any backend; uses a virtual CPU mesh if no TPU):
+Run from the repo root (any backend; a virtual CPU mesh without a GPU):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 \
         JAX_PLATFORMS=cpu python examples/batch_example.py

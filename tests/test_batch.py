@@ -109,19 +109,19 @@ def test_cli_list_mode_batched_matches_serial(tmp_path):
 
 
 def test_device_call_buckets_batch_dim():
-    """Live-group sizes shrink as instances finish; _device_call must pad
-    the batch dim to a bounded bucket set so each distinct B is not a
-    fresh XLA trace of banded_poa_dp_batch (round-3 review finding)."""
-    from abpoa_tpu.ops import dp_xla
+    """Live-group sizes shrink as instances finish; the device round must
+    pad the batch dim to a bounded bucket set so each distinct B is not a
+    fresh XLA trace of the DP + walk (round-3 review finding)."""
+    from abpoa_tpu.ops import bt_xla
     from abpoa_tpu.parallel.batch import BatchPOA
     from abpoa_tpu.params import Params
     reads = _encoded("seq.fa")
     p = Params().post_set()
-    base = dp_xla.banded_poa_dp_batch._cache_size()
+    base = bt_xla.dp_bt_batch._cache_size()
     # instance counts 5 and 7 both bucket to B=8: one trace, not two
     BatchPOA(p, engine="xla").run([reads] * 5)
-    n5 = dp_xla.banded_poa_dp_batch._cache_size()
+    n5 = bt_xla.dp_bt_batch._cache_size()
     BatchPOA(p, engine="xla").run([reads] * 7)
-    n7 = dp_xla.banded_poa_dp_batch._cache_size()
+    n7 = bt_xla.dp_bt_batch._cache_size()
     assert n5 > base, "expected at least one fresh trace"
     assert n7 == n5, "B=7 must reuse the B=5 bucket's traces"

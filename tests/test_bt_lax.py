@@ -1,7 +1,10 @@
-"""The standalone lax backtrack (ops/bt_xla.backtrack_batch) stays honest:
-it must reproduce the oracle cigar over XLA-engine planes (it is the
-device-side fallback/validation twin of the in-kernel backtrack)."""
+"""The standalone lax backtrack (ops/bt_xla.backtrack_one, the walk half
+of the XLA end) stays honest: it must reproduce the oracle cigar over
+XLA-engine planes (it is the reference twin of the in-kernel walk)."""
+from functools import partial
+
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from conftest import DATA
@@ -31,26 +34,21 @@ def test_lax_backtrack_matches_oracle():
             dg = export_dense(ab.graph, params, q)
             cfg, inp = _make_inputs(dg, params)
             out = banded_poa_dp(cfg, inp)
-            # pack banded rows as full-width planes (W == WB here)
-            btc = bt_xla.BTConfig(gap_mode=params.gap_mode, pn=dg.pn,
-                                  R=dg.R, WB=dg.W, P=dg.P,
-                                  LMAX=dg.R + dg.W)
-            b = lambda x: jnp.asarray(x)[None]  # noqa: E731
-            zero_sn = jnp.zeros((1, dg.R), jnp.int32)
-            end_sn = jnp.asarray(out.dp_end)[None] // dg.pn
+            btc = bt_xla.BTConfig(gap_mode=params.gap_mode, R=dg.R,
+                                  WB=dg.W, P=dg.P, LMAX=dg.R + dg.W)
+            planes = jnp.stack([out.H, out.E1, out.E2, out.F1, out.F2],
+                               axis=1)
             qcodes = np.zeros(dg.W, np.int32)
             qcodes[:dg.qlen] = np.asarray(q)
-            steps, n_steps, fail, ei, ej = bt_xla.backtrack_batch(
-                btc, jnp.asarray(out.H)[None], jnp.asarray(out.E1)[None],
-                jnp.asarray(out.E2)[None], jnp.asarray(out.F1)[None],
-                jnp.asarray(out.F2)[None],
-                jnp.asarray(out.dp_beg)[None] // dg.pn, end_sn,
-                b(dg.pre_idx.reshape(-1)), b(dg.pre_n), b(dg.bases),
-                b(qcodes), b(np.asarray(params.mat, np.int32)),
-                jnp.asarray([out.best_i]), jnp.asarray([out.best_j]),
-                b(np.int32(dg.qlen)), b(np.int32(params.gap_ext1)),
-                b(np.int32(params.gap_oe1)), b(np.int32(params.gap_ext2)),
-                b(np.int32(params.gap_oe2)), tile_sn=zero_sn)
+            walk = jax.jit(partial(bt_xla.backtrack_one, btc))
+            steps, n_steps, fail, ei, ej = (np.asarray(x)[None] for x in walk(
+                planes, out.dp_beg, out.dp_end,
+                jnp.asarray(dg.pre_idx.reshape(-1)), jnp.asarray(dg.pre_n),
+                jnp.asarray(dg.bases), jnp.asarray(qcodes),
+                jnp.asarray(np.asarray(params.mat, np.int32)), out.best_i,
+                out.best_j, jnp.int32(params.gap_ext1),
+                jnp.int32(params.gap_oe1), jnp.int32(params.gap_ext2),
+                jnp.int32(params.gap_oe2)))
             assert not bool(np.asarray(fail)[0])
             res_d = AlignResult()
             res_d.best_score = int(out.best_score)

@@ -1,6 +1,6 @@
 """JAX engine vs host oracle: per-call score/cigar equality on fixtures.
 
-Gate M3 from SURVEY.md §7: the TPU (JAX/XLA) DP must produce identical
+Gate M3 from SURVEY.md §7: the device (JAX/XLA) DP must produce identical
 cigars and scores to the bit-exact host oracle on every alignment of the
 golden fixtures, across align modes x gap modes.
 """
@@ -106,7 +106,7 @@ def test_cli_golden_jax_engine(golden, extra):
 # (qlen*match ~= 32767 - min_mis - gap_oe, ref simd_abpoa_align.c
 # :1667-1683 via engine_np.score_width_dispatch) on BOTH sides, with
 # real scores driven near INT16_MAX / below inf_min, and assert
-# oracle == dp_xla (== the band kernel, interpret mode, on the 16-bit
+# oracle == dp_xla (== the banded kernel, interpret mode, on the 16-bit
 # side) scores and cigars.
 
 def _bound_graph(params, g_read):
@@ -139,31 +139,18 @@ def test_int16_dispatch_bound_high(match, want_bits):
     assert res_jx.best_score == res_np.best_score
     assert res_jx.cigar == res_np.cigar
     if want_bits == 16:
-        # band kernel (interpret) on the same export, 16-bit geometry
-        import jax.numpy as jnp
-        from abpoa_tpu.align.engine_jax import (export_dense,
-                                                make_pallas_inputs,
-                                                pick_WB)
-        from abpoa_tpu.ops.dp_pallas_band import (BandConfig,
-                                                  band_poa_dp_batch)
-        from abpoa_tpu.ops import dp_pallas as dpp
+        # banded kernel (interpret) on the same export, 16-bit geometry
+        import jax
+        from abpoa_tpu.align.engine_jax import export_dense, device_round
+        from abpoa_tpu.ops import layout as L
         ab2 = _bound_graph(params, g_read)
         ab2.graph.topological_sort(params)
         dg = export_dense(ab2.graph, params, q)
         assert dg.pn == 32  # 16-bit mode doubles the lane count
-        WB = pick_WB(params, dg.qlen, dg.pn)
-        Wq = (dg.qlen // 128 + 1) * 128
-        WqB = (Wq + WB - 1) // WB * WB
-        LMAX = ((dg.R + Wq) + 511) // 512 * 512
-        cfg, arrs = make_pallas_inputs(dg, params, WB, force_Wq=WqB,
-                                       bt_lmax=LMAX)
-        bc = BandConfig(cfg.gap_mode, cfg.align_mode, cfg.pn, dg.R, WB,
-                        WqB, cfg.P, cfg.O, cfg.m, cfg.use_zdrop, LMAX, 1)
-        out = band_poa_dp_batch(bc, *[jnp.asarray(a)[None] for a in arrs],
-                                interpret=True)
-        misc = np.asarray(out.misc)[0]
-        assert not misc[dpp.M_OVFL] and not misc[dpp.M_FAIL]
-        assert int(misc[dpp.M_BEST]) == res_np.best_score
+        misc, _ = jax.device_get(device_round("kernel", [dg], params,
+                                              interpret=True))
+        assert not misc[0, L.M_OVFL] and not misc[0, L.M_FAIL]
+        assert int(misc[0, L.M_BEST]) == res_np.best_score
 
 
 def test_int16_dispatch_bound_deep_negative():

@@ -1,6 +1,6 @@
 """Packed-backtrack capacity guards: R > 4096 rows must route around the
-Pallas kernels (step encoding op|row<<2|col<<14 holds 12 row bits) and
-still produce oracle-identical results."""
+device walk (step encoding op|row<<2|col<<14 holds 12 row bits) and still
+produce oracle-identical results."""
 import numpy as np
 
 from abpoa_tpu.api import ABPOA
@@ -35,24 +35,22 @@ def _sequential_consensus(reads, params):
 
 
 def test_plain_guard_r_gt_4096(monkeypatch):
-    """The >4096-row graph takes the XLA fallback inside the pallas
-    dispatch (no packed-step kernel) and matches the oracle."""
-    params = Params().post_set()
+    """The >4096-row graph takes the XLA planes round inside the kernel
+    engine's dispatch (no packed steps) and matches the oracle."""
     reads = _long_reads()
     expected = _sequential_consensus(reads, Params().post_set())
 
-    bp = BatchPOA(Params().post_set())
-    # force the pallas dispatch path on CPU so the capacity guard (not
-    # the backend check) is what routes to the XLA engine
-    monkeypatch.setattr(bp, "_effective_engine", lambda: "pallas")
+    # the kernel engine (interpret mode on CPU), so the capacity guard is
+    # what routes to the XLA planes round
+    bp = BatchPOA(Params().post_set(), engine="kernel", interpret=True)
     calls = {"xla": 0}
-    orig = bp._device_call
+    orig = bp._planes_round
 
-    def spy(cfg, batched):
+    def spy(dgs):
         calls["xla"] += 1
-        return orig(cfg, batched)
+        return orig(dgs)
 
-    monkeypatch.setattr(bp, "_device_call", spy)
+    monkeypatch.setattr(bp, "_planes_round", spy)
     got = bp.run_consensus([reads])
     assert got == [expected]
     # graph grows past 4096 rows by read 2: the guard must have engaged
@@ -60,8 +58,8 @@ def test_plain_guard_r_gt_4096(monkeypatch):
 
 
 def test_seeded_guard_r_gt_4096(monkeypatch):
-    """run_seeded routes oversized windows to the host oracle (the
-    ADVICE round-1 finding) and matches the sequential seeded result."""
+    """run_seeded routes windows past the device capacity to the host
+    oracle, counts them, and matches the sequential seeded result."""
     params = Params().post_set()
     params.disable_seeding = 0
     # independent random reads: no shared minimizers -> no anchors -> the
@@ -88,8 +86,9 @@ def test_seeded_guard_r_gt_4096(monkeypatch):
                 for s in ab.cons.cons_base[:ab.cons.n_cons]]
 
     bp = BatchPOA(params)
-    monkeypatch.setattr(bp, "_effective_engine", lambda: "pallas")
+    bp.seeded_device = True   # the device path, as on a GPU
     abs_ = bp.run_seeded([reads])
+    assert bp.fallbacks >= 1
     generate_consensus(abs_[0], params)
     got = [bytes(tab[b] for b in s).decode()
            for s in abs_[0].cons.cons_base[:abs_[0].cons.n_cons]]

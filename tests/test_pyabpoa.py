@@ -76,7 +76,7 @@ def test_incremental(tmp_path):
 
 
 def test_msa_batch_matches_single():
-    """The TPU-native msa_batch extension must return, per input, the
+    """The batched msa_batch extension must return, per input, the
     same msa_result fields as a fresh .msa() call on that input."""
     import abpoa_tpu.pyabpoa as pa
     seqs = ["ACGTACGTACGT", "ACGTACGAACGT", "ACGTACGTACG",

@@ -1,8 +1,8 @@
 """Batched seeded POA (run_seeded) equals the sequential anchored path.
 
-On CPU this exercises the generator/driver plumbing with the oracle; the
-device window path is validated on TPU by the --engine jax seeded goldens
-(see .claude/skills/verify/SKILL.md).
+On CPU without a mesh this exercises the generator/driver plumbing with
+the oracle; the device window rounds (XLA end) run on a GPU or a mesh
+(tests/test_seeded_xla.py, chip_smoke.py).
 """
 import numpy as np
 

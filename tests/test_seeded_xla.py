@@ -2,9 +2,9 @@
 
 The config-5 north-star workload (-S seeded windows, BASELINE.json) must
 run data-parallel over a device mesh. On CPU the effective engine is XLA:
-run_seeded routes window rounds through _seeded_dispatch_xla — the same
-subgraph exports the Pallas path uses, through dp_xla.banded_poa_dp_batch
-with NamedSharding over the mesh (parallel/batch.py). Output must be
+run_seeded routes window rounds through _seeded_dispatch_xla — subgraph
+exports through dp_xla.banded_poa_dp_batch, sharded over the mesh by
+align/engine_jax.device_round. Output must be
 byte-identical to the serial oracle pipeline (ref abpoa_anchor_poa
 src/abpoa_align.c:192-299).
 """

@@ -13,7 +13,7 @@ docs/REFERENCE_UB.md) with CANARY_BYTE=0x00 — the reference's defined
 semantics. Build it with tests/golden/make_sanitized_ref.sh.
 
 Campaign:  python tools/fuzz_ref.py --n 500 [--start 0] [--keep-going]
-Failures save a self-contained repro under /tmp/abpoa_fuzz/<seed>/.
+Failures save a self-contained repro under $TMPDIR/abpoa_fuzz/<seed>/.
 
 The pytest suite runs a fixed-seed subset (tests/test_fuzz_ref.py).
 """
@@ -26,6 +26,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 import contextlib
 
 import numpy as np
@@ -239,7 +240,7 @@ def run_ours(inp: pathlib.Path, args: list[str], out: pathlib.Path):
 def gen_list_case(seed: int, workdir: pathlib.Path):
     """List-mode (-l) case: 4-7 independent single-instance files, one
     consensus each (ref serial loop abpoa.c:135-143; our --engine jax
-    side batches all files through BatchPOA — the production TPU path,
+    side batches all files through BatchPOA — the production device path,
     byte-identical by contract). Reuses gen_case inputs from derived
     seeds; flags come from the base seed but drop per-file modes."""
     rng = np.random.default_rng(10_000_019 + seed)
@@ -332,8 +333,8 @@ def main():
     ap.add_argument("--quiet", action="store_true")
     ap.add_argument("--engine", choices=["numpy", "jax"], default=None,
                     help="route our side through this DP engine "
-                         "(jax = the device/XLA path; on CPU this "
-                         "fuzzes the TPU engine's XLA flavor)")
+                         "(jax = the device path; on CPU this fuzzes "
+                         "its XLA end)")
     ap.add_argument("--list-mode", action="store_true",
                     help="fuzz -l list cases (with --engine jax these "
                          "batch all files through BatchPOA, the "
@@ -343,16 +344,14 @@ def main():
         global ENGINE
         ENGINE = a.engine
         if a.engine == "jax":
-            import jax
-            jax.config.update("jax_compilation_cache_dir",
-                              str(REPO / ".jax_cache"))
-            jax.config.update(
-                "jax_persistent_cache_min_compile_time_secs", 1.0)
+            from abpoa_tpu.jaxcache import enable_compile_cache
+            enable_compile_cache()
     if not REF_BIN.exists():
         sys.exit("sanitized reference missing; run "
                  "tests/golden/make_sanitized_ref.sh first")
     # per-process workdir: concurrent campaigns must not clobber inputs
-    work = pathlib.Path(f"/tmp/abpoa_fuzz/work.{os.getpid()}")
+    work = (pathlib.Path(tempfile.gettempdir()) / "abpoa_fuzz"
+            / f"work.{os.getpid()}")
     work.mkdir(parents=True, exist_ok=True)
     fails = []
     for seed in range(a.start, a.start + a.n):
@@ -371,14 +370,14 @@ def main():
                 print(f"seed {seed:5d} OK   {descr}")
             continue
         fails.append(seed)
-        rd = pathlib.Path(f"/tmp/abpoa_fuzz/{seed}")
+        rd = pathlib.Path(tempfile.gettempdir()) / "abpoa_fuzz" / str(seed)
         rd.mkdir(parents=True, exist_ok=True)
         (rd / "input").write_text(text)
         (rd / "args").write_text(" ".join(args) + "\n")
         (rd / "ref.out").write_bytes(ref)
         (rd / "got.out").write_bytes(got)
         print(f"seed {seed:5d} FAIL {descr}  args: {' '.join(args)}  "
-              f"-> /tmp/abpoa_fuzz/{seed}")
+              f"-> {rd}")
         if not a.keep_going:
             break
     print(f"\n{a.n} cases from seed {a.start}: "
